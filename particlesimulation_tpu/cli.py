@@ -8,8 +8,9 @@ Usage mirrors the reference binary (reference serial/parsim.cpp:461-469):
 stdout: two lines — particle 0's position at three decimals, then the
 cumulative collision count (serial/parsim.cpp:450-453). Wall time goes to
 stderr as "%.1fs" (serial/parsim.cpp:475-479), timing only the step loop, as
-the reference does. The reference bash harnesses can drive this entry
-unmodified.
+the reference does; the fast engine first names its census route there
+("route: impl=... kcap=..."). The reference bash harnesses can drive this
+entry unmodified.
 """
 
 from __future__ import annotations
@@ -76,9 +77,9 @@ def main(argv: list[str] | None = None) -> int:
     import jax
 
     if mesh > 1:
-        # Mesh runs on a host without enough devices self-provision a
-        # virtual CPU mesh (the reference's mpirun-on-one-machine analog,
-        # reference mpi/run_tests.sh:8-16); no-op when devices suffice.
+        # CPU mesh runs self-provision a virtual CPU mesh (the reference's
+        # mpirun-on-one-machine analog, reference mpi/run_tests.sh:8-16);
+        # on an accelerator with too few devices this raises instead.
         from particlesimulation_tpu.utils import runtime
         runtime.ensure_device_count("particlesimulation_tpu", reexec_args,
                                     mesh)
@@ -123,6 +124,10 @@ def main(argv: list[str] | None = None) -> int:
     elapsed = time.perf_counter() - t0
 
     x, y, cols = eng.result(state)
+    if engine_kind == "fast":
+        # The census route the run took (stderr keeps stdout's contract).
+        print(f"route: impl={eng.impl} kcap={getattr(eng, 'kcap', None)}",
+              file=sys.stderr)
     print(f"{elapsed:.1f}s", file=sys.stderr)
     print(f"{x:.3f} {y:.3f}")
     print(cols)

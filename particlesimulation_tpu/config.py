@@ -25,8 +25,9 @@ class Precision(enum.Enum):
     PARITY: float64 with the exact operation order of the serial oracle.
         Bit-reproduces the reference trajectories (XLA path; runs on CPU or
         any backend with native f64).
-    FAST: float32, order-free reductions, Pallas kernels on TPU. The
-        performance path; physics is identical but FP association differs.
+    FAST: float32, order-free reductions, slot-tile engines on the GPU.
+        The performance path; physics is identical but FP association
+        differs.
     """
 
     PARITY = "parity"
@@ -59,7 +60,8 @@ class SimConfig:
     # decomposition (parallel/sharded2d.py). Empty = 1D row decomposition.
     # Must multiply to n_shards; each factor must be <= ncside. The
     # reference is 1D-only (its report picks rows for simplicity,
-    # CPD_2nd_delivery.pdf §2.1); the 2D mesh is the TPU-torus shape.
+    # CPD_2nd_delivery.pdf §2.1); a rectangle ships its perimeter per halo
+    # instead of whole grid rows.
     mesh_shape: tuple = ()
     # Optional census-planned shard row boundaries (first owned global row
     # per shard, ascending, starting at 0). Empty = the balanced uneven

@@ -1,11 +1,8 @@
 """Dense per-cell-tile force/collision passes in pure XLA.
 
-Same (ncells, K) slot-tile layout and math as the Pallas kernels in
-``ops/pallas/cell_pairs.py``, expressed as a ``lax.map`` over blocks of
-cells so XLA bounds the (CB, Ic, K) pair intermediates instead of
-materializing the full (ncells, K, K) tensor. This is the fast-engine hot
-path on runtimes where Pallas custom calls are unavailable; the Pallas
-kernels remain the intended path on first-party TPU runtimes.
+The (ncells, K) slot-tile pair passes of every tile engine, expressed as
+a ``lax.map`` over blocks of cells so XLA bounds the (CB, Ic, K) pair
+intermediates instead of materializing the full (ncells, K, K) tensor.
 
 Replaces the per-offset sweep (O(k) separate shifted passes over HBM) with
 blockwise all-pairs arithmetic — the pair work becomes compute-bound
@@ -23,44 +20,51 @@ from particlesimulation_tpu.config import G
 
 # Cells per lax.map iteration. Each iteration is a separate device launch;
 # with fused elementwise+reduce bodies nothing K²-sized materializes, so
-# bigger blocks amortize launch overhead (the dominant cost at N=1e6).
+# bigger blocks amortize launch overhead. Untuned default carried over
+# from the first target; not tuned on the H100.
 CELL_BLOCK = int(os.environ.get("PSIM_CELL_BLOCK", "1024"))
 
-# Dense-tile capacity bound for the XLA formulations. Unlike the Pallas
-# kernels (cell_pairs.MAX_DENSE_KCAP, a VMEM-stack constraint), the
-# lax.map bodies chunk their pair intermediates as (CB, ichunk, K) —
-# nothing (K, K)-sized exists — so high-occupancy grids (the reference's
-# MEDIUM workload runs k≈2500 per cell) stay on the dense path instead of
-# falling back to the ~10× slower sweep. Cell blocks scale down with K
-# (_eff_cb) to keep the per-iteration intermediate footprint constant.
+# Dense-tile capacity bound. The lax.map bodies chunk their pair
+# intermediates as (CB, ichunk, K) — nothing (K, K)-sized exists — so
+# high-occupancy grids (the reference's MEDIUM workload runs k≈2500 per
+# cell) stay on the dense path instead of falling back to the much slower
+# sweep. Cell blocks scale down with K (_eff_cb) to keep the per-iteration
+# intermediate footprint constant.
 MAX_XLA_KCAP = int(os.environ.get("PSIM_MAX_XLA_KCAP", "4096"))
 
 
-# Below this domain size the MXU force form (fused_pairs_v4) is NOT the
-# default: its contraction-cancellation error (~1e-3 relative on
-# near-EPSILON pairs, PERF.md study) would exceed the f32 coordinate-
-# quantization error every fast-path variant already carries. At
-# side >= ~84 the shared quantization floor ulp(side)/EPSILON ~
-# side*6e-8/0.005 >= 1e-3 dwarfs v4's extra term (measured: at side=5000
-# both v2 and v4 sit at ~2-5% vs f64 truth on near pairs while their
-# mutual delta is <=2.5e-4 — tests/test_dense_kernels.py quantization
-# study), so v4's 5-31% step win costs nothing measurable. Tiny boxes
-# (golden N1/N2, side=0.05) stay on v2 where it is genuinely ~1000x more
+# Matmul precision of every contraction in the fast engines: true f32.
+# At the default precision an f32 matmul on the GPU may run in TF32 (a
+# 10-bit mantissa): a one-hot gather of coordinates up to 1e4 then moves
+# them by whole length units (ops/supercell.py), and v4's cancelling
+# force form would lose its digits wherever XLA picks the tensor cores.
+F32_MATMUL = jax.lax.Precision.HIGHEST
+
+# Below this domain size the contraction force form (fused_pairs_v4) is
+# NOT the default: its contraction-cancellation error (~1e-3 relative on
+# near-EPSILON pairs) would exceed the f32 coordinate-quantization error
+# every fast-path variant already carries. At side >= ~84 the shared
+# quantization floor ulp(side)/EPSILON ~ side*6e-8/0.005 >= 1e-3 dwarfs
+# v4's extra term (at side=5000 both v2 and v4 sit at ~2-5% vs f64 truth
+# on near pairs while their mutual delta is <=2.5e-4 —
+# tests/test_dense_kernels.py quantization study). Tiny boxes (golden
+# N1/N2, side=0.05) stay on v2 where it is genuinely ~1000x more
 # accurate near EPSILON.
 V4_MIN_SIDE = float(os.environ.get("PSIM_V4_MIN_SIDE", "100"))
 
-# Receiver-chunk width for the chunked pair passes (v2/v4/v5). 32 is the
-# measured-best default at the flagship shape; env-tunable for A/B sweeps.
+# Receiver-chunk width for the chunked pair passes (v2/v4/v5). Untuned
+# default carried over from the first target (not tuned on the H100);
+# env-tunable for A/B sweeps.
 PAIR_ICHUNK = int(os.environ.get("PSIM_PAIR_ICHUNK", "32"))
 
 
 def resolve_pair_impl(name: str | None = None, side: float | None = None):
     """Fused-pair-pass variant selector (shared by every tile engine).
 
-    Default: v4 (MXU force form) when the domain is large enough that f32
-    coordinate quantization already floors the near-pair force error
-    (side >= V4_MIN_SIDE; see the derivation above), else v2 — the
-    measured-fastest exact VPU form. PSIM_PAIR_IMPL overrides; v1/v3/v5
+    Default: v4 (contraction force form) when the domain is large enough
+    that f32 coordinate quantization already floors the near-pair force
+    error (side >= V4_MIN_SIDE; see the derivation above), else v2 — the
+    exact per-pair form. PSIM_PAIR_IMPL overrides; v1/v3/v5
     stay selectable for A/B runs. An unknown name raises a ValueError
     naming the valid options instead of a bare KeyError.
     """
@@ -86,7 +90,7 @@ def resolve_pair_impl(name: str | None = None, side: float | None = None):
 HIT_OVF = 1 << 29
 
 
-def resolve_collide_mode(backend: str = "xla") -> str:
+def resolve_collide_mode() -> str:
     """Collision-resolution mode for the tile engines.
 
     ``block`` — the fused pair pass runs the first-pair rank machinery
@@ -95,16 +99,13 @@ def resolve_collide_mode(backend: str = "xla") -> str:
     flags only (one lean d² sweep, no branch machinery) and the exact
     reference count is computed once per step by compact_collision_count
     over the few flagged slots. Both are exact; their economics differ
-    with collision density (PERF.md "Compact collision resolution").
-    PSIM_COLLIDE overrides. Pallas kernels implement only block mode.
+    with collision density. PSIM_COLLIDE overrides.
     """
     mode = os.environ.get("PSIM_COLLIDE", "block")
     if mode not in ("block", "compact"):
         raise ValueError(
             f"unknown collision mode {mode!r} (PSIM_COLLIDE); "
             f"valid: ['block', 'compact']")
-    if backend == "pallas":
-        return "block"
     return mode
 
 
@@ -189,13 +190,11 @@ def _snug_cb(cb: int, ncells: int) -> int:
     cb - 1. Exact by construction: every per-cell output (forces, ranks,
     counts) is computed within its own (K, K) row — block boundaries
     group whole cell rows and never mix them — so the result is bitwise
-    independent of cb. The waste this reclaims is real on both targets:
-    a padded cell row costs the full K² lanes of its block. Measured
-    motivation (round 5): at D=8 the column-sharded banded engine's
-    per-shard bands are 13 columns wide, so every band rounded up to a
-    full 1024-row block — 2.96x the single-chip pair lanes on the
-    UNEVEN compose config, the dominant term of the measured 1.45x
-    pairs-phase composition factor (PERF.md "Phase-ablated composition").
+    independent of cb. A padded cell row costs the full K² lanes of its
+    block; at D=8 the column-sharded banded engine's per-shard bands are
+    13 columns wide, so without this every band rounded up to a full
+    1024-row block — 2.96x the single-chip pair lanes on the UNEVEN
+    compose config.
     """
     nb = max(1, -(-ncells // cb))
     return min(cb, max(8, (-(-ncells // nb) + 7) // 8 * 8))
@@ -358,7 +357,7 @@ def fused_pairs_v2(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
       force rows are zero and they form no pairs, so skipping them changes
       nothing. Arrivals fill the lowest free slots (ops/resident.py), so
       kb tracks real occupancy, not capacity — this reclaims most of the
-      K_cap² ≫ Σk_c² waste PERF.md identified.
+      K_cap² ≫ Σk_c² padding waste.
     * **hit-gated collision bookkeeping** — a cheap d² pass first computes
       a per-block "any pair within ε" flag; the rank/min/count machinery
       (including the pid-rank tie-break pass) runs under a ``lax.cond``
@@ -366,7 +365,7 @@ def fused_pairs_v2(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
       (collisions per step ≪ blocks per step). The branch *recomputes*
       pair data from the (CB, K) tiles rather than closing over (CB, K, K)
       intermediates — a closed-over hit tensor becomes a branch operand
-      and costs more than it saves (PERF.md round-1 note).
+      and costs more than it saves.
     * **hit-chunk skipping** — the d² pass also records WHICH receiver
       chunks contain a hit endpoint (a (nb_i,) flag vector); inside the
       gated branch, the min/count candidate sweeps run per receiver chunk
@@ -374,10 +373,9 @@ def fused_pairs_v2(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
       pair lie within ε of each other, so both are hit slots and every
       hit pair's receiver chunk is flagged — skipped chunks contribute
       only INF/zero, making the skip exact. This is what keeps the
-      machinery cheap on *collision-dense* workloads (the N=1e7 bench:
+      machinery cheap on *collision-dense* workloads (at N=1e7 there are
       ~1.6 expected hits per block ⇒ ~80% of blocks enter the branch
-      every step, but only ~1 of nb_i receiver chunks is flagged —
-      PERF.md "1e7 pair-pass attribution", round 4).
+      every step, but only ~1 of nb_i receiver chunks is flagged).
     """
     cb = _snug_cb(_eff_cb(cb, kcap), ncells)
     g = jnp.float32(G)
@@ -422,8 +420,7 @@ def fused_pairs_v2(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
             # flags via compact_collision_count — a single tiny O(H²)
             # pass over the few flagged slots instead of per-block branch
             # machinery on every hit block (collision-dense workloads run
-            # ~80% of blocks through the branch every step — PERF.md
-            # "1e7 pair-pass attribution").
+            # ~80% of blocks through the branch every step).
             def flag_body(t, fl):
                 i0 = t * ichunk
                 xi = islice(x, i0)
@@ -583,7 +580,7 @@ def fused_pairs_v3(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
                    collide: bool = True, cb: int = CELL_BLOCK, pid=None,
                    ichunk: int | None = None):
     """One-sweep fused pair pass (same contract and bit-identical outputs
-    as fused_pairs_v2). NOT the default — measured slower; see below.
+    as fused_pairs_v2). NOT the default; see below.
 
     v2 pays two chunked pair sweeps per block every step: a d²-only
     hit-flag pass, then the force pass. v3 folds the hit flag into the
@@ -595,15 +592,13 @@ def fused_pairs_v3(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
     Recompute-not-correct keeps results bit-identical to v2: a no-hit
     block's m_post == mf so the pre-mass forces are already exact, and a
     hit block's forces are rebuilt with the same formula v2 uses. Branch
-    operands stay (CB, K)-sized (closing over (CB, K, K) intermediates was
-    the round-1 regression — PERF.md).
+    operands stay (CB, K)-sized (closing over (CB, K, K) intermediates
+    costs more than it saves).
 
-    Measured on the v5e at the N=1e6 bench config: 8.72 ms/step vs v2's
-    7.55 — the cond's operand materialization plus double-swept hit
-    blocks (1-2 of 10 blocks per step at CELL_BLOCK=1024) cost more than
-    the d²-only hit pass they replace. Kept as a selectable variant
-    (PSIM_PAIR_IMPL=v3): its economics flip on collision-free workloads
-    or smaller cell blocks, and its bit-equality with v2 is pinned in
+    It lost to v2 on the first target (the cond's operand materialization
+    plus double-swept hit blocks cost more than the d²-only hit pass they
+    replace); not measured on the H100. Kept as a selectable variant
+    (PSIM_PAIR_IMPL=v3); its bit-equality with v2 is pinned in
     tests/test_dense_kernels.py.
     """
     cb = _snug_cb(_eff_cb(cb, kcap), ncells)
@@ -735,8 +730,8 @@ def fused_pairs_v3(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
 def fused_pairs_v4(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
                    collide: bool | str = True, cb: int = CELL_BLOCK,
                    pid=None, ichunk: int | None = None, sub=None):
-    """MXU-form pair pass (same contract as fused_pairs_v2, including
-    the ``collide="flags"`` mode's bool-endpoint-flag return).
+    """Contraction-form pair pass (same contract as fused_pairs_v2,
+    including the ``collide="flags"`` mode's bool-endpoint-flag return).
 
     Rewrites the force reduction as two contractions per chunk:
 
@@ -744,14 +739,15 @@ def fused_pairs_v4(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
 
     with xl = x recentered by the row mean (any per-row constant cancels
     exactly in the algebra; recentering bounds the cancellation). The
-    per-pair ``s·dx`` multiplies + tree reductions become einsums that
-    can ride the MXU (precision=HIGH — bf16_3x, ~f32-faithful).
+    per-pair ``s·dx`` multiplies + tree reductions become einsums, run at
+    ``F32_MATMUL`` (true f32: a reduced-precision matmul would wreck the
+    cancelling difference below).
 
-    Adoption is gated on the cancellation study (PERF.md): for a
+    Adoption is gated on the cancellation study: for a
     near-EPSILON pair the two contraction terms are ~w·|xl| each while
     their difference is ~w·d, so the relative force error grows like
-    |xl|/d ≈ cell_width/EPSILON ULPs — measured and documented; the
-    collision machinery is v2's exactly (d² never rides the MXU).
+    |xl|/d ≈ cell_width/EPSILON ULPs (tests/test_dense_kernels.py); the
+    collision machinery is v2's exactly (d² never enters a contraction).
     """
     cb = _snug_cb(_eff_cb(cb, kcap), ncells)
     g = jnp.float32(G)
@@ -763,7 +759,6 @@ def fused_pairs_v4(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
     while kcap % ichunk:
         ichunk //= 2
     nb_i = -(-kcap // ichunk)
-    HIGH = jax.lax.Precision.HIGH
 
     def block(args):
         x, y, mf, alive = args[:4]
@@ -904,7 +899,7 @@ def fused_pairs_v4(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
             cnt = jnp.int32(0)
             m_post = mf
 
-        # ---- MXU force form --------------------------------------------
+        # ---- contraction force form ------------------------------------
         nrow = jnp.maximum(jnp.sum(m_post > 0, axis=1,
                                    dtype=jnp.int32), 1).astype(jnp.float32)
         cx0 = jnp.sum(jnp.where(m_post > 0, x, 0.0), axis=1) / nrow
@@ -935,11 +930,12 @@ def fused_pairs_v4(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
             inv = jnp.where(nz, jax.lax.rsqrt(jnp.where(nz, d2, 1.0)), 0.0)
             w = m_post[:, None, :] * (inv * inv * inv)     # (CB, Ic, K)
             if stacked:
-                s3 = jnp.einsum("cik,ckd->cid", w, rhs, precision=HIGH)
+                s3 = jnp.einsum("cik,ckd->cid", w, rhs,
+                                precision=F32_MATMUL)
                 sx, sy, sw = s3[..., 0], s3[..., 1], s3[..., 2]
             else:
-                sx = jnp.einsum("cik,ck->ci", w, xl, precision=HIGH)
-                sy = jnp.einsum("cik,ck->ci", w, yl, precision=HIGH)
+                sx = jnp.einsum("cik,ck->ci", w, xl, precision=F32_MATMUL)
+                sy = jnp.einsum("cik,ck->ci", w, yl, precision=F32_MATMUL)
                 sw = jnp.sum(w, axis=2)
             fx = jax.lax.dynamic_update_slice_in_dim(
                 fx, gmi * (sx - xi * sw), i0, axis=1)
@@ -984,18 +980,12 @@ def fused_pairs_v5(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
     order. The rare collision-rank branch (hit-gated) keeps v2's chunked
     machinery.
 
-    Silicon verdict (v5e, 2026-08-18, PERF.md "N3L triangular pair
-    pass"): the halved pair arithmetic LOSES to v2 everywhere that
-    matters - symmetric 32x32 tiles: flagship ~4.9 vs 4.7 ms, banded
-    UNEVEN 51.3 vs 56.8 (the one win, 1.11x), MEDIUM 139.9 vs 43.5;
-    lane-wide 32x128 tiles: banded 66.4, MEDIUM 89.9. The dual-sided
-    accumulation's four read-modify-write slice updates per tile force
-    the (cb, K) force carries to materialize every iteration, where v2's
-    single full-width reduce fuses into one pass - a third independent
-    confirmation (after the Pallas port and the v3 restructure) that the
-    pair pass is bound by XLA transport/fusion structure, not FLOPs.
-    Saved FLOPs were the cheap part. Kept selectable (PSIM_PAIR_IMPL=v5)
-    with correctness pinned; v2 stays the default.
+    On the first target the halved pair arithmetic lost to v2 on every
+    shape but clustered UNEVEN: the dual-sided accumulation's four
+    read-modify-write slice updates per tile force the (cb, K) force
+    carries to materialize every iteration, where v2's single full-width
+    reduce fuses into one pass. Not measured on the H100. Kept selectable
+    (PSIM_PAIR_IMPL=v5) with correctness pinned; not the default.
     """
     cb = _snug_cb(_eff_cb(cb, kcap), ncells)
     g = jnp.float32(G)
@@ -1191,7 +1181,7 @@ def fused_pairs_v5(xd, yd, mfd, alived, ncells: int, kcap: int, eps: float,
             ft.reshape(-1, Kp)[:ncells, :kcap])
 
 
-# bf16 far-field A/B (PERF.md "Open levers"): the monopole terms are the
+# bf16 far-field A/B: the monopole terms are the
 # smooth long-range part of the force — each is a COM attraction at >= one
 # cell width, so the per-term relative error bf16 introduces (~2^-8) sits
 # on a term that is itself an O(cell/r)^2-truncated approximation of the

@@ -4,7 +4,7 @@ The reference's hottest loops (reference serial/parsim.cpp:292-377): exact
 pairwise gravity between alive particles sharing a cell, with Newton's-third-
 law dual update, plus monopole attraction from the eight stencil temp-cells.
 
-TPU-native formulation — the *sorted neighbor-offset sweep*: with particles
+Array formulation — the *sorted neighbor-offset sweep*: with particles
 sorted by (cell, id), all same-cell partners of particle i sit at offsets
 i±o, o < k_max (the max cell occupancy, a dynamic scalar). A ``fori_loop``
 over o does masked shifted-array arithmetic across all N lanes at once:

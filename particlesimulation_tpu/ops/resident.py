@@ -1,7 +1,7 @@
 """Slot-resident rebinning: move particles between cell tiles without a sort.
 
-The sorted-particle representation pays ~10ms-per-1e6-element scatter/gather
-and a lexicographic sort every step on TPU. The resident representation
+The sorted-particle representation pays a per-particle scatter/gather and
+a lexicographic sort every step. The resident representation
 keeps the *state itself* in (ncells, K) slot tiles and re-bins by moving the
 few particles that changed cell ("movers") directly between rows:
 
@@ -48,11 +48,9 @@ MAX_ROUNDS = 64
 # Straggler-compaction capacity: once the pending-mover count fits, the
 # remaining deliveries happen in one compact pass (two nonzero()s + an
 # 8k sort + small gather/scatter) instead of more full-grid rounds.
-# Opt-in (PSIM_REBIN_COMPACT=1): measured 5x SLOWER end-to-end on the
-# v5e (34.1 vs 6.35 ms/step at N=1e6) — nonzero() lowers to the same
-# scatter class the resident design exists to avoid (PERF.md round-3
-# "Mover compaction"). Kept for CPU-class backends and as the measured
-# negative result.
+# Opt-in (PSIM_REBIN_COMPACT=1): nonzero() lowers to the scatter class
+# the resident design exists to avoid. It lost on the first target; its
+# speed on the H100 is not measured yet.
 MCAP = int(os.environ.get("PSIM_REBIN_MCAP", "8192"))
 
 
@@ -157,8 +155,7 @@ def rebin(ts: TileState, side: float, ncside: int, kcap: int,
 
         Entered once the pending count fits MCAP: replaces the tail of
         full-grid delivery rounds (each re-runs the whole grid for a few
-        stragglers — measured 0.87 ms/round at the N=1e6 bench, 5-8
-        rounds/step). Movers compact to an (MCAP,) buffer (nonzero),
+        stragglers, 5-8 rounds/step at the N=1e6 flagship). Movers compact to an (MCAP,) buffer (nonzero),
         sort by destination row, and land in their destination's lowest
         free slots; the landing set is enumerated row-major (second
         nonzero) so the i-th deliverable mover pairs with the i-th
@@ -217,28 +214,22 @@ def rebin(ts: TileState, side: float, ncside: int, kcap: int,
                                      jnp.asarray(0.0, st.m.dtype)))
         return st, n_moving - n_del
 
-    # Deliveries per (row, direction) per round. Swept on the v5e at the
-    # N=1e6 bench (PERF.md round 3): R=1 7.27 ms/step (argmax form 6.35),
-    # R=2 5.87 (fewer rounds beat the extra rank terms), R=3 pathological
-    # (XLA lowering collapses, 1.8 s/step), round-2's R=8 also lost.
+    # Deliveries per (row, direction) per round. R=3 made XLA's lowering
+    # collapse on the first target. The rebin constants below (R, FORM,
+    # STACKF, NDIRS) are untuned defaults carried over from that target;
+    # none has been tuned on the H100.
     R = int(os.environ.get("PSIM_REBIN_R", "2"))
     # Arrival-selection formulation: "argmax" chains per-rank argmax
     # reductions, "rank" is the general cumsum form. Winner/target
     # selection is identical — the r-th set lane — so the two are
-    # bit-equivalent; only the op class differs. Measured (v5e, N=1e6
-    # bench, same-session best-of-2 after the warm pass): R=1 argmax
-    # 0.9 ms/step cheaper (round 2); R=2 chained argmax 11.61 vs rank
-    # 13.83 ms/step (round 3, on a ~2.4x-degraded device day — the
-    # 16% relative win is the meaningful number). Default: argmax.
+    # bit-equivalent; only the op class differs. Default: argmax.
     FORM = os.environ.get("PSIM_REBIN_FORM",
                           "argmax" if R <= 2 else "rank")
     # Phase-2 transport batching: stacking the five f32 fields into one
     # (5, ncells, K) array turns 5 masked-sum/roll/select chains per term
     # into 1 (pid stays a separate int32 pass — bitcasting pids through
-    # f32 arithmetic is not NaN-payload-safe). Measured NEUTRAL-to-
-    # slightly-negative on the v5e (11.79 vs 11.61 ms/step same-session,
-    # PERF.md round-3 A/B) — XLA already fuses the five chains; off by
-    # default, kept for A/B.
+    # f32 arithmetic is not NaN-payload-safe). Off by default, kept for
+    # A/B.
     STACKF = os.environ.get("PSIM_REBIN_STACK", "0") == "1"
     # Direction decomposition: 8 = full stencil (one term set per sign
     # pair), 4 = axis-routed (dimension-ordered routing: movers with a
@@ -247,10 +238,7 @@ def rebin(ts: TileState, side: float, ncside: int, kcap: int,
     # mask-dominated and scales with the direction-term count, while
     # corner-crossing (diagonal) movers are rare at physical step sizes —
     # so 4 halves the per-round transport for at most ~one extra round.
-    # Default 4: measured on the v5e N=1e6 bench 2026-08-18 (same session,
-    # best-of-2 after warm): 6.01 ms/step (8-dir) -> 4.66 ms/step, both
-    # collisions=173 overflow=0 — the predicted ~2x delivery-transport cut
-    # with no extra rounds (PERF.md "Axis-routed rebin delivery").
+    # Default 4.
     NDIRS = int(os.environ.get("PSIM_REBIN_DIRS", "4"))
     if NDIRS == 4:
         DIRS = ((1, 0), (-1, 0), (0, 1), (0, -1))
@@ -301,9 +289,9 @@ def rebin(ts: TileState, side: float, ncside: int, kcap: int,
             going = _going(moving, sx, sy, dx, dy)
             arr = _roll_grid(going, dx, dy, ncside, nrows)
             if R == 1 and FORM == "argmax":
-                # argmax formulation (committed round-1/2 path): one
-                # reduction instead of a cumsum — measured ~0.9 ms/step
-                # cheaper than the rank form at the N=1e6 bench.
+                # argmax formulation: one reduction instead of the rank
+                # form's cumsum (bit-equivalent; faster on the first
+                # target, not measured on the H100).
                 has = jnp.any(arr, axis=1, keepdims=True)
                 ok = has & (base < n_free)
                 win = arr & (lane == jnp.argmax(arr, axis=1)[:, None]) & ok
@@ -411,9 +399,9 @@ def rebin(ts: TileState, side: float, ncside: int, kcap: int,
     # domain far from its parked row), and each further round re-runs the
     # whole grid to move them one cell. One compact pass delivers ANY
     # distance directly; gating it on a round threshold keeps it out of
-    # typical steps entirely (they finish in <= ~4 rounds), so the
-    # measured 5x cost of compact-always (PERF.md "Mover compaction")
-    # is never paid on the fast path.
+    # typical steps entirely (they finish in <= ~4 rounds), so the cost
+    # of compact-always (5x on the first target) is never paid on the
+    # fast path.
     STRAGGLER = int(os.environ.get("PSIM_REBIN_STRAGGLER_ROUNDS", "8"))
 
     if compact_ok:
@@ -437,12 +425,11 @@ def rebin(ts: TileState, side: float, ncside: int, kcap: int,
 
     # Static-prefix delivery (PSIM_REBIN_STATIC_ROUNDS=K): run up to K
     # rounds as *statically unrolled* lax.conds before (or instead of)
-    # the dynamic while_loop. Measured motivation (PERF.md "1e7 regime"):
-    # at N=1e7 the mere presence of the dynamic while_loop in the step
-    # graph put the whole program in a ~12x-slower regime even though the
-    # loop ran ~1 round/step; the static prefix lets typical steps avoid
-    # dynamic trips entirely. With PSIM_REBIN_NO_TAIL=1 the while_loop is
-    # dropped from the graph altogether and undelivered movers after K
+    # the dynamic while_loop. On the first target, at N=1e7, the mere
+    # presence of the dynamic while_loop in the step graph made the whole
+    # program much slower even though the loop ran ~1 round/step; the
+    # static prefix lets typical steps avoid dynamic trips entirely. With
+    # PSIM_REBIN_NO_TAIL=1 the while_loop is dropped from the graph altogether and undelivered movers after K
     # rounds surface through the overflow counter (lossless retry).
     K_STATIC = int(os.environ.get("PSIM_REBIN_STATIC_ROUNDS", "0"))
     NO_TAIL = os.environ.get("PSIM_REBIN_NO_TAIL", "0") == "1"

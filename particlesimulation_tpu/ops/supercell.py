@@ -5,7 +5,7 @@ The slot-resident representation (ops/resident.py) keys one tile row per
 with N=5e5, 0.3 particles per cell (g32mpi/CPD_2nd_delivery.pdf p.4) —
 that wastes two orders of magnitude: 1.69M rows × K padded slots for
 500k particles, and every pass pays traffic proportional to the *grid*,
-not the particles (measured 147 ms/step; PERF.md "Open levers").
+not the particles.
 
 Here one tile row covers an S×S block of physical cells (a "super-cell"),
 so tile count tracks particles, not cells:
@@ -17,15 +17,14 @@ so tile count tracks particles, not cells:
   pairs interact/collide only on equal labels, preserving the reference's
   strictly same-cell pair rule (serial/parsim.cpp:356-366,393-411);
 * **per-cell COM** — a one-hot (rows, K, S²) membership tensor contracted
-  on the MXU (precision=MXU_PRECISION: COM values must not quantize to bf16 —
-  DEVNOTES' MXU-precision rule) gives per-cell mass/moment sums, which
-  transpose-reshape onto the true (ncside, ncside) cell grid;
+  as a batched matmul (precision=F32_MATMUL: COM values must not be
+  rounded to a reduced-precision mantissa) gives per-cell mass/moment
+  sums, which transpose-reshape onto the true (ncside, ncside) cell grid;
 * **monopole stencil** — built exactly as everywhere else
   (ops/stencil.py on the true cell grid, periodic mirrors at *cell*
   granularity), then packed back to super-cell layout and gathered
   per-slot with the same one-hot tensor (one batched matmul — the
-  one-hot contraction IS the gather, on the MXU instead of the
-  scatter/gather unit TPUs punish);
+  one-hot contraction IS the gather, exact at F32_MATMUL);
 * **rebin** — ops/resident.rebin on the (nsc, nsc) super-cell grid:
   movers are only *super-cell* crossers (S× fewer boundary crossings,
   nsc²/S⁴ fewer rows per delivery round), movement within a super-cell
@@ -51,13 +50,9 @@ from particlesimulation_tpu.ops import dense_xla as dmod
 from particlesimulation_tpu.ops import resident as res
 
 INF = jnp.int32(0x7FFFFFFF)
-# MXU precision for the one-hot COM/gather contractions. HIGH (3-pass
-# bf16 emulation, ~f32-faithful) measured 50× cheaper than HIGHEST
-# (6-pass) on the v5e for these tiny batched matmuls — HIGHEST put the
-# whole monopole path at 25 of 28.5 ms/step on the SMALL shape
-# (tools/tpu_scmono_probe.py). DEFAULT (1-pass bf16) would quantize COM
-# positions to ~1e-2 relative — off the table per DEVNOTES' MXU rule.
-MXU_PRECISION = jax.lax.Precision.HIGH
+# The one-hot COM/gather contractions run at true f32 (dense_xla.F32_MATMUL):
+# a gather through a TF32 matmul would round each coordinate it moves.
+F32_MATMUL = dmod.F32_MATMUL
 
 
 def choose_supercell_factor(config: SimConfig, target_occ: float = 24.0,
@@ -211,11 +206,11 @@ def make_supercell_run(config: SimConfig, kcap: int, S: int):
         onehot = ((sub[:, :, None] == jnp.arange(s2, dtype=jnp.int32))
                   & binned[:, :, None]).astype(jnp.float32)
         # Per-cell mass / moment sums: (rows, K) x (rows, K, S²) -> (rows, S²)
-        M_sc = jnp.einsum("rk,rks->rs", mf, onehot, precision=MXU_PRECISION)
+        M_sc = jnp.einsum("rk,rks->rs", mf, onehot, precision=F32_MATMUL)
         SX_sc = jnp.einsum("rk,rks->rs", mf * ts.x, onehot,
-                           precision=MXU_PRECISION)
+                           precision=F32_MATMUL)
         SY_sc = jnp.einsum("rk,rks->rs", mf * ts.y, onehot,
-                           precision=MXU_PRECISION)
+                           precision=F32_MATMUL)
         if mono_ablate == "com":
             return _ablate_exit(ts, M_sc + SX_sc + SY_sc)
         M = unpack_grid(M_sc)
@@ -232,17 +227,17 @@ def make_supercell_run(config: SimConfig, kcap: int, S: int):
         if mono_ablate == "tables":
             return _ablate_exit(ts, tbl_sc)
         # Per-slot gather of its own cell's 8 neighbor terms — a batched
-        # one-hot matmul, i.e. a gather that rides the MXU.
+        # one-hot matmul, i.e. a gather.
         slot_t = jnp.einsum("rks,rsc->rkc", onehot, tbl_sc,
-                            precision=MXU_PRECISION)
+                            precision=F32_MATMUL)
         if mono_ablate == "gather":
             return _ablate_exit(ts, slot_t)
         return _force_terms(ts, mf, slot_t)
 
     # ---- monopole, halo-table path (S | ncside) -------------------------
     # The general path's cost is its cell-grid shuffles: unpack×3, the
-    # (8, ncells)→(ncells, 8) transposes, and pack — measured 19.7 of
-    # 29.4 ms/step on the SMALL shape. This path never leaves super-cell
+    # (8, ncells)→(ncells, 8) transposes, and pack — most of the SMALL
+    # shape's step on the first target. This path never leaves super-cell
     # layout: per-cell COM lands directly in a halo-extended (S+2)²
     # per-tile grid whose ring is filled from ring-neighbor tiles by
     # major-axis rolls (the cheap roll class — ops/resident.py), grid
@@ -318,11 +313,11 @@ def make_supercell_run(config: SimConfig, kcap: int, S: int):
         onehot = ((subh[:, :, None] == jnp.arange(sp2, dtype=jnp.int32))
                   & binned[:, :, None]).astype(jnp.float32)
         # Per-cell sums land directly at interior halo-grid positions.
-        M_h = jnp.einsum("rk,rkh->rh", mf, onehot, precision=MXU_PRECISION)
+        M_h = jnp.einsum("rk,rkh->rh", mf, onehot, precision=F32_MATMUL)
         SX_h = jnp.einsum("rk,rkh->rh", mf * ts.x, onehot,
-                          precision=MXU_PRECISION)
+                          precision=F32_MATMUL)
         SY_h = jnp.einsum("rk,rkh->rh", mf * ts.y, onehot,
-                          precision=MXU_PRECISION)
+                          precision=F32_MATMUL)
         if mono_ablate == "com":
             return _ablate_exit(ts, M_h + SX_h + SY_h)
         safe = jnp.where(M_h > 0, M_h, jnp.float32(1.0))
@@ -342,7 +337,7 @@ def make_supercell_run(config: SimConfig, kcap: int, S: int):
         if mono_ablate == "tables":
             return _ablate_exit(ts, HH)
         slot_t = jnp.einsum("rkh,rhc->rkc", onehot, HH,
-                            precision=MXU_PRECISION)
+                            precision=F32_MATMUL)
         if mono_ablate == "gather":
             return _ablate_exit(ts, slot_t)
         return _force_terms(ts, mf, slot_t)

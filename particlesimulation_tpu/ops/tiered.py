@@ -2,17 +2,16 @@
 
 The reference's bucket grid pays per-particle work regardless of how
 particles distribute over cells (reference serial/parsim.cpp:261-290,
-292-377: per-bucket loops). The TPU dense-tile formulation instead pays
+292-377: per-bucket loops). The dense-tile formulation instead pays
 ``ncells x kcap^2`` pair lanes with ``kcap`` = the *global* max occupancy —
 on clustered loads (the reference harness's normal-mode ``-seed`` inits,
 serial/parsim.cpp:220-232, a Gaussian blob) the occupancy spans orders of
 magnitude (UNEVEN: median 21, max ~750 at a mean of 100), so one hot cell
-taxes every cell: kcap=960, 9.2e9 pair lanes, 158.9 ms/step (PERF.md).
+taxes every cell: kcap=960, 9.2e9 pair lanes.
 
-A first two-tier cut (round 3) measured only 1.14x better: the blob's
-occupancy is a smooth continuum — 1888 of 10000 cells exceeded any
-reasonable small cap, and every one of them paid the global-max tile.
-The fix is a **geometric ladder of occupancy classes**: cells are grouped
+A two-tier cut helps little: the blob's occupancy is a smooth
+continuum — 1888 of 10000 cells exceed any reasonable small cap, and
+every one of them paid the global-max tile. The fix is a **geometric ladder of occupancy classes**: cells are grouped
 by occupancy into T classes with static caps k_0 < k_1 < ... < k_{T-1};
 class 0 keeps a row for every cell (row = cell id, no indirection), and
 each higher class holds a compact census-budgeted row list. A cell pays
@@ -23,10 +22,9 @@ pair lanes proportional to (at worst) 4x its own occupancy squared —
 Layout: all classes live in ONE flat slot buffer (class offsets are
 static), so tile build is a single scatter per field and the force
 readback a single gather — per-particle traffic does not scale with T.
-The per-class pair/collision kernels (`ops/dense_xla.py`,
-`ops/pallas/cell_pairs`) run unchanged on reshaped views of the flat
-buffer. Per-cell COM rows merge by scatter-add (a classed cell's class-0
-row is empty), so the stencil tables and every downstream consumer see
+The per-class pair/collision passes (`ops/dense_xla.py`) run unchanged
+on reshaped views of the flat buffer. Per-cell COM rows merge by
+scatter-add (a classed cell's class-0 row is empty), so the stencil tables and every downstream consumer see
 the same (ncells,) arrays as the single-tier step.
 
 Capacity is planned from a host-side occupancy census (`plan_tiers`, a
@@ -44,6 +42,7 @@ import jax.numpy as jnp
 
 from particlesimulation_tpu.config import DELTAT, EPSILON, Precision, SimConfig
 from particlesimulation_tpu.ops import binning, collisions, integrate, stencil
+from particlesimulation_tpu.ops import dense_xla as dmod
 from particlesimulation_tpu.state import SimState
 
 
@@ -51,11 +50,12 @@ def _round32(x: float) -> int:
     return max(32, (int(x) + 31) // 32 * 32)
 
 
-# Cost-model weights (v5e, lax.map dense kernels): ~1e11 pair lanes/s on
-# the measured flagship; per-extra-class fixed overhead (an extra pair +
-# collision kernel dispatch and COM merge inside the step, ~0.1 ms)
+# Cost-model weights in pair-lane units: a per-extra-class fixed overhead
+# (an extra pair + collision dispatch and COM merge inside the step)
 # charged as lane-equivalents — it also makes the planner decline
 # ladders on small grids, where dispatch overhead beats lane savings.
+# Untuned defaults carried over from the first target; not calibrated on
+# the H100.
 _CLASS_PENALTY = 8_000_000
 _SLOT_WEIGHT = 24  # linear per-slot passes (scatter, COM, collision aux)
 
@@ -117,7 +117,7 @@ def plan_tiers(occ_hist, ncells: int, max_kcap: int):
     return list(plan)
 
 
-def make_tiered_step(config: SimConfig, plan, backend: str = "xla"):
+def make_tiered_step(config: SimConfig, plan):
     """Fast f32 step over occupancy-classed dense tiles.
 
     ``plan``: [(cap, rows), ...] caps ascending, rows_0 == ncells.
@@ -139,10 +139,6 @@ def make_tiered_step(config: SimConfig, plan, backend: str = "xla"):
     for k, r in plan:
         offs.append(offs[-1] + r * k)
     total = offs[-1]
-    if backend == "pallas":
-        from particlesimulation_tpu.ops.pallas import cell_pairs as dmod
-    else:
-        from particlesimulation_tpu.ops import dense_xla as dmod
 
     caps_a = jnp.asarray(caps, jnp.int32)          # (T,)
     rows_a = jnp.asarray(rows, jnp.int32)

@@ -153,7 +153,7 @@ def make_sharded_step(config: SimConfig, mesh: Mesh, cap: int | None = None,
         MX2 = MX.reshape(rows_max, nc)
         MY2 = MY.reshape(rows_max, nc)
 
-        # ---- COM halo ring over ICI (reference ghost exchange P3) ----
+        # ---- COM halo ring (reference ghost exchange P3) ----
         # "My last row" is the last *owned* row (dynamic under the uneven
         # decomposition); "my first row" is always local row 0.
         def last_row(A):
@@ -323,8 +323,8 @@ class ShardedEngine:
       f64 parity path (bitwise equal to single-chip; asserted in tests).
     * ``resident`` — slot-resident (local_cells, K) tiles with the fused
       pair kernels and halo-row migration (parallel/sharded_resident.py).
-      The FAST-precision default: the same formulation that is 22x faster
-      than the sweep on one chip (PERF.md).
+      The FAST-precision default: the same formulation as the
+      single-chip resident engine.
 
     Tile-capacity overflow in the resident impl triggers a lossless retry
     with larger tiles, then escalation to the sweep impl — mirroring the
@@ -502,7 +502,7 @@ class ShardedEngine:
         imbalance (CPD_2nd_delivery.pdf p.6); here ``UNEVEN --mesh D``
         lands on banded-cols with no --impl flag. Uniform loads whose
         per-shard resident tile state would exceed PSIM_STREAM_BYTES get
-        uniform streaming bands instead (PERF.md "1e7 band streaming") —
+        uniform streaming bands instead (engine.Engine.init_state) —
         columns are the mesh axis, so the band plan composes unchanged.
         The sparse regime routed to supercell in __init__ (config-static).
         """
@@ -801,8 +801,6 @@ class ShardedEngine:
             state_in = state._replace(
                 overflow=jnp.zeros_like(state.overflow))
             out = self._run(state_in, jnp.int32(n_steps))
-            # Scalar readback doubles as a hard completion fence (remote
-            # backends may treat block_until_ready as dispatch-complete).
             jax.block_until_ready(out)
             need = int(np.asarray(out.overflow))
             if need == 0:

@@ -3,16 +3,15 @@
 The reference's MPI variant decomposes the grid along rows only and its
 report motivates that choice by implementation simplicity — ≤2 neighbors
 and a cheap wraparound (g32mpi/CPD_2nd_delivery.pdf §2.1; code
-mpi/parsim-mpi.cpp:330-465). That is the right call for a handful of CPU
-ranks but the wrong shape for a TPU pod: the physical ICI fabric is a 2D/3D
-torus, and a 1D ring of many chips ships whole grid rows (O(ncside) cells)
-per halo while a 2D rectangle ships its perimeter (O(rows/d_r + cols/d_c)).
-This module is the torus-native generalization: each device owns a
+mpi/parsim-mpi.cpp:330-465). The case for a rectangle is traffic, not
+the interconnect (four GPUs of one host are joined all to all by NVLink,
+so every pair of devices is one hop): a 1D ring of many devices ships
+whole grid rows (O(ncside) cells) per halo, while a 2D rectangle ships
+its perimeter (O(rows/d_r + cols/d_c)). Each device owns a
 ``rows × cols`` *rectangle* of cells, the COM halo is the classic
 two-phase exchange (rows axis, then cols axis over the row-padded grid so
-corners ride along — exactly the pattern the fabric does in one hop per
-axis), and particle migration routes dimension-ordered (rows first, then
-cols), the standard 2D-torus routing.
+corners ride along), and particle migration routes dimension-ordered
+(rows first, then cols).
 
 Everything the 1D engine guarantees carries over:
 
@@ -274,7 +273,7 @@ def make_sharded2d_step(config: SimConfig, mesh: Mesh, dec_r: AxisDecomp,
         MX2 = MX.reshape(rows_max, cols_max)
         MY2 = MY.reshape(rows_max, cols_max)
 
-        # ---- two-phase COM halo over ICI (reference ghost exchange P3,
+        # ---- two-phase COM halo (reference ghost exchange P3,
         # generalized to the torus: rows axis first, then cols over the
         # row-padded grid so corner cells ride the second phase) ----
         Mpp, MXpp, MYpp = two_phase_com_halo(M2, MX2, MY2, rows_mine,
@@ -570,17 +569,14 @@ class Sharded2DEngine:
         """Census-route clustered/sparse loads to the 1D ring (or None).
 
         banded-cols and supercell are 1D decompositions; the rectangle
-        split has no equivalent (and measured no advantage at the shard
-        counts where those regimes matter — PERF.md "2D rectangular
-        mesh"). A ``--mesh RxC`` request fixes the device COUNT; with no
-        impl flag the engine owns the decomposition choice, so the same
+        split has no equivalent. A ``--mesh RxC`` request fixes the device
+        COUNT; with no impl flag the engine owns the decomposition choice, so the same
         census gates as the 1D ``ShardedEngine`` run here and, on a hit,
         the run executes on the identical chips re-laid as a ring. The
         reference's one-binary mpirun harness is the behavioral model
         (reference mpi/run_tests.sh:8-16): no workload needs a flag to
         run distributed well. Uniform loads return None and stay on the
-        2D resident/sweep path (faster per chip than 1D resident —
-        PERF.md mesh2d A/B).
+        2D resident/sweep path.
         """
         import dataclasses
 

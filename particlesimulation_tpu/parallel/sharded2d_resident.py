@@ -1,9 +1,10 @@
 """2D-sharded slot-resident fast engine: rectangle tiles + two-axis halos.
 
-Round 3 left the torus-native decomposition (parallel/sharded2d.py) on the
-sweep formulation only — the fast resident-tile engine could shard over a
-1D ring but not over the (rows × cols) mesh that matches the physical ICI
-fabric. This module is the composition: each shard's state lives in
+The rectangle decomposition (parallel/sharded2d.py) on its own runs the
+sweep formulation only; the fast resident-tile engine otherwise shards
+over a 1D ring but not over the (rows × cols) mesh, whose halos carry a
+rectangle's perimeter instead of whole rows. This module is the
+composition: each shard's state lives in
 ``(local_cells, K)`` slot tiles covering its cell *rectangle* plus a
 one-cell halo ring, and one ``shard_map``-wrapped program per step does
 

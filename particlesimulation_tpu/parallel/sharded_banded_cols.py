@@ -1,9 +1,8 @@
 """Column-sharded banded engine: clustered loads on a 1D ring mesh.
 
-Round 4's block-cyclic sharded banded engine (parallel/sharded_banded.py)
-measured a 2.18x composition factor at D=8 (PERF.md "Sharded banded
-composition"): giving every shard 1/D of every band's rows makes every
-chunk boundary a ring boundary, so each shard pays 2 halo rows per band
+The block-cyclic sharded banded engine (parallel/sharded_banded.py)
+composes poorly across shards: giving every shard 1/D of every band's
+rows makes every chunk boundary a ring boundary, so each shard pays 2 halo rows per band
 (80 halo vs 100 owned rows at D=8 x 5 bands) and every row-direction
 hop is a ppermute round. This engine is the structural fix, found by
 transposing the decomposition: **shard the mesh axis along grid COLUMNS

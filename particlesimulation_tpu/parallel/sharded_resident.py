@@ -2,7 +2,7 @@
 
 Round 1 proved two things separately: (a) the slot-resident tile
 representation is the fast single-chip formulation (no per-step sort, no
-per-particle scatter/gather — PERF.md's 22x gap over the sweep), and (b) the
+per-particle scatter/gather), and (b) the
 row-block decomposition with a one-row ppermute COM halo ring is bitwise
 correct. This module composes them: each shard's state lives in
 ``(local_cells, K)`` slot tiles covering its row block plus two *particle

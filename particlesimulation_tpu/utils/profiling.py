@@ -43,7 +43,7 @@ class PhaseTimer:
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """XLA device trace (the TPU-native DEBUG_PRINT analog)."""
+    """XLA device trace (the accelerator-side DEBUG_PRINT analog)."""
     jax.profiler.start_trace(logdir)
     try:
         yield

@@ -150,3 +150,29 @@ class NpOracle:
             for i in in_set:
                 self.alive[i] = False
                 self.m[i] = 0.0
+
+
+def tile_pair_forces(x, y, m):
+    """Direct-sum pairwise forces over (ncells, K) slot tiles, in f64.
+
+    The plain reference for the fast engines' tile pair passes
+    (ops/dense_xla.fused_pairs_v*, collide=False): every pair of occupied
+    slots in one tile row interacts (reference serial/parsim.cpp:292-377),
+    empty slots carry m=0. Vectorized NumPy; returns (fx, fy) f64 tiles.
+    """
+    import numpy as np
+
+    x, y, m = (np.asarray(a, np.float64) for a in (x, y, m))
+    fx = np.zeros_like(x)
+    fy = np.zeros_like(x)
+    for c0 in range(0, x.shape[0], 256):      # bound the (cb, K, K) temps
+        sl = slice(c0, c0 + 256)
+        dx = x[sl, None, :] - x[sl, :, None]
+        dy = y[sl, None, :] - y[sl, :, None]
+        d2 = dx * dx + dy * dy
+        nz = d2 > 0
+        inv3 = np.where(nz, 1.0 / np.where(nz, d2, 1.0) ** 1.5, 0.0)
+        s = G * m[sl, :, None] * m[sl, None, :] * inv3
+        fx[sl] = (s * dx).sum(axis=2)
+        fy[sl] = (s * dy).sum(axis=2)
+    return fx, fy

@@ -152,8 +152,8 @@ def test_banded_golden_vector_3():
 # ---- band-major fused step (round 5) -----------------------------------
 
 def _banded_out(cfg, plan, steps, state=None, fused=True):
-    # Default is the general step (the r5 silicon A/B measured fusion
-    # perf-neutral); opt in per-run via env so both paths stay covered.
+    # Default is the general step; opt in per-run via env so both paths
+    # stay covered.
     import os
     prev = os.environ.get("PSIM_BANDED_FUSED")
     os.environ["PSIM_BANDED_FUSED"] = "1" if fused else "0"

@@ -6,7 +6,7 @@ sweep, engine.py:run) replaces the reference's PANIC-skip data loss
 (reference serial/parsim.cpp:276-280). Round 1 only exercised the first
 rung; these tests force every branch:
 
-* single-cell pile-up driving kcap past MAX_DENSE_KCAP → full escalation
+* single-cell pile-up driving kcap past MAX_XLA_KCAP → full escalation
   to the sweep impl;
 * the reference's own UNEVEN workload shape (normal-mode seed -23,
   CPD_2nd_delivery.pdf p.4's `-23 5000 100 1000000 200`, scaled to unit-test
@@ -43,13 +43,11 @@ def test_escalation_chain_to_sweep(monkeypatch):
     cap the ladder must walk resident → dense → sweep and still match the
     sweep-only run exactly (same f32 formulation after escalation)."""
     from particlesimulation_tpu.ops import dense_xla
-    from particlesimulation_tpu.ops.pallas import cell_pairs
-    monkeypatch.setattr(cell_pairs, "MAX_DENSE_KCAP", 64)
     monkeypatch.setattr(dense_xla, "MAX_XLA_KCAP", 64)
 
     cfg = SimConfig(seed=1, side=1.0, ncside=1, n_particles=300,
                     precision=Precision.FAST)
-    eng = Engine(cfg, kcap=32, impl="resident", dense_backend="xla")
+    eng = Engine(cfg, kcap=32, impl="resident")
     out = eng.run(eng.init_state(), 5)
     assert eng.impl == "sweep"          # escalated all the way
     assert int(out.overflow) == 0
@@ -69,13 +67,13 @@ def test_resident_kcap_retry_succeeds():
     report must resize the tiles and replay losslessly."""
     cfg = SimConfig(seed=1, side=1.0, ncside=4, n_particles=400,
                     precision=Precision.FAST)
-    eng = Engine(cfg, kcap=8, impl="resident", dense_backend="xla")
+    eng = Engine(cfg, kcap=8, impl="resident")
     out = eng.run(eng.init_state(), 3)
     assert int(out.overflow) == 0
     assert eng.kcap > 8 or eng.impl != "resident"
     _conserved(out, 400)
 
-    ref = Engine(cfg, impl="resident", dense_backend="xla")
+    ref = Engine(cfg, impl="resident")
     exp = ref.run(ref.init_state(), 3)
     assert int(out.collisions) == int(exp.collisions)
 
@@ -87,13 +85,13 @@ def test_uneven_workload_shape(impl):
     tiny starting capacity so the cluster forces at least one retry."""
     cfg = SimConfig(seed=-23, side=50.0, ncside=10, n_particles=2000,
                     precision=Precision.FAST)
-    eng = Engine(cfg, kcap=32, impl=impl, dense_backend="xla")
+    eng = Engine(cfg, kcap=32, impl=impl)
     out = eng.run(eng.init_state(), 20)
     assert int(out.overflow) == 0
     _conserved(out, 2000)
     # Lossless determinism: an identical engine reproduces the run bit for
     # bit (retries replay from the input state, never partial progress).
-    eng2 = Engine(cfg, kcap=32, impl=impl, dense_backend="xla")
+    eng2 = Engine(cfg, kcap=32, impl=impl)
     out2 = eng2.run(eng2.init_state(), 20)
     assert int(out.collisions) == int(out2.collisions)
     order1 = np.argsort(np.asarray(out.pid))
@@ -110,7 +108,7 @@ def test_resident_multi_round_burst():
     nc, side, n = 8, 8.0, 40
     cfg = SimConfig(seed=1, side=side, ncside=nc, n_particles=n,
                     precision=Precision.FAST)
-    eng = Engine(cfg, kcap=64, impl="resident", dense_backend="xla")
+    eng = Engine(cfg, kcap=64, impl="resident")
 
     # 5 particles per surrounding cell, each just inside its boundary with
     # the center cell (4,4) = [4,5)², velocity carrying it across in one

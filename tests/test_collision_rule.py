@@ -129,18 +129,15 @@ def test_tile_tiebreak_ranks_by_pid_not_slot():
     pid ranks must reproduce the reference bucket-order count (1), where
     slot ranks would give 2."""
     from particlesimulation_tpu.ops import dense_xla
-    from particlesimulation_tpu.ops.pallas import cell_pairs
 
     positions = [_TIE_POSITIONS[p] for p in _TIE_SLOTS]
-    for mod in (dense_xla, cell_pairs):
-        cnt_pid, cnt_slot = _tile_counts(mod, _TIE_SLOTS, positions)
-        assert cnt_pid == 1, mod.__name__   # reference bucket-order semantics
-        assert cnt_slot == 2, mod.__name__  # what slot ranks would have done
+    cnt_pid, cnt_slot = _tile_counts(dense_xla, _TIE_SLOTS, positions)
+    assert cnt_pid == 1   # reference bucket-order semantics
+    assert cnt_slot == 2  # what slot ranks would have done
 
 
 def test_tile_tiebreak_fused_pairs_matches():
     from particlesimulation_tpu.ops import dense_xla
-    from particlesimulation_tpu.ops.pallas import cell_pairs
 
     kcap = 8
     xs = [_TIE_POSITIONS[p][0] for p in _TIE_SLOTS] + [0.0] * 4
@@ -150,10 +147,9 @@ def test_tile_tiebreak_fused_pairs_matches():
     md = jnp.asarray([[1.0] * 4 + [0.0] * 4], jnp.float32)
     ad = jnp.asarray([[1, 1, 1, 1, 0, 0, 0, 0]], jnp.int32)
     pd = jnp.asarray([_TIE_SLOTS + [0] * 4], jnp.int32)
-    for mod in (dense_xla, cell_pairs):
-        _, _, cnt, ftd = mod.fused_pairs(xd, yd, md, ad, 1, kcap, EPSILON,
-                                         collide=True, pid=pd)
-        assert int(cnt) == 1, mod.__name__
-        # All four are endpoints of some colliding pair: all die.
-        assert (np.asarray(ftd)[0, :4] != 0x7FFFFFFF).all(), mod.__name__
-        assert (np.asarray(ftd)[0, 4:] == 0x7FFFFFFF).all(), mod.__name__
+    _, _, cnt, ftd = dense_xla.fused_pairs(xd, yd, md, ad, 1, kcap, EPSILON,
+                                           collide=True, pid=pd)
+    assert int(cnt) == 1
+    # All four are endpoints of some colliding pair: all die.
+    assert (np.asarray(ftd)[0, :4] != 0x7FFFFFFF).all()
+    assert (np.asarray(ftd)[0, 4:] == 0x7FFFFFFF).all()

@@ -1,6 +1,7 @@
-"""Dense Pallas kernels vs the XLA sweep formulations (interpret mode on CPU).
+"""Dense per-cell tile pair passes (ops/dense_xla.py) vs the sweep and an
+f64 direct sum.
 
-The dense per-cell tile kernels must agree with the sweep implementations:
+The dense per-cell tile passes must agree with the sweep implementations:
 forces to f32 tolerance (different summation order), collision counts and
 death sets exactly (integer semantics are order-independent by construction).
 """
@@ -15,12 +16,12 @@ from particlesimulation_tpu.config import EPSILON, Precision, SimConfig
 RNG = np.random.default_rng(7)
 
 
-def _mk_engines(n=3000, side=50.0, nc=8, seed=1, backend="pallas"):
+def _mk_engines(n=3000, side=50.0, nc=8, seed=1):
     from particlesimulation_tpu.engine import Engine
     base = dict(seed=seed, side=side, ncside=nc, n_particles=n,
                 precision=Precision.FAST)
     sweep = Engine(SimConfig(**base), use_dense=False)
-    dense = Engine(SimConfig(**base), use_dense=True, dense_backend=backend)
+    dense = Engine(SimConfig(**base), use_dense=True)
     return sweep, dense
 
 
@@ -31,9 +32,8 @@ def _by_pid(state):
             for f in ("x", "y", "vx", "vy", "m", "alive")}
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
-def test_dense_step_matches_sweep_step(backend):
-    sweep, dense = _mk_engines(backend=backend)
+def test_dense_step_matches_sweep_step():
+    sweep, dense = _mk_engines()
     s_state = sweep.run(sweep.init_state(), 3)
     d_state = dense.run(dense.init_state(), 3)
     sv, dv = _by_pid(s_state), _by_pid(d_state)
@@ -42,11 +42,9 @@ def test_dense_step_matches_sweep_step(backend):
     assert int(d_state.overflow) == 0
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
-def test_dense_collisions_match_sweep_exactly(backend):
+def test_dense_collisions_match_sweep_exactly():
     # Tiny box → many collisions; counts and death sets are exact integers.
-    sweep, dense = _mk_engines(n=200, side=0.08, nc=4, seed=5893,
-                               backend=backend)
+    sweep, dense = _mk_engines(n=200, side=0.08, nc=4, seed=5893)
     s_state = sweep.run(sweep.init_state(), 8)
     d_state = dense.run(dense.init_state(), 8)
     assert int(s_state.collisions) == int(d_state.collisions)
@@ -65,33 +63,28 @@ def test_dense_overflow_triggers_capacity_retry():
     assert eng.kcap > 8 or not eng.use_dense
 
 
-def test_dense_force_kernel_against_direct_numpy():
-    from particlesimulation_tpu.ops.pallas import cell_pairs
+@pytest.mark.parametrize("form", ["v2", "v4"])
+def test_dense_force_kernel_against_direct_numpy(form):
+    """The fused pair pass's forces (collide=False) vs an f64 direct sum,
+    for the per-pair form (v2) and the contraction form (v4)."""
     import jax.numpy as jnp
-    from particlesimulation_tpu.config import G
+
+    from particlesimulation_tpu.ops import dense_xla
+    from tests.oracle_np import tile_pair_forces
 
     ncells, kcap = 6, 16
     x = RNG.uniform(0, 1, (ncells, kcap)).astype(np.float32)
     y = RNG.uniform(0, 1, (ncells, kcap)).astype(np.float32)
     m = RNG.uniform(0.5, 1.0, (ncells, kcap)).astype(np.float32)
     m[:, 12:] = 0.0  # empty slots
-    zeros8 = np.zeros((ncells, 8), np.float32)
-    fx, fy = cell_pairs.dense_pairwise_forces(
+    fx, fy, cnt, _ = dense_xla.resolve_pair_impl(form)(
         jnp.asarray(x), jnp.asarray(y), jnp.asarray(m),
-        jnp.asarray(zeros8), jnp.asarray(zeros8), jnp.asarray(zeros8),
-        ncells, kcap)
-    fx = np.asarray(fx)
-    # Direct O(K^2) reference in f64.
-    for c in range(ncells):
-        for i in range(kcap):
-            acc = 0.0
-            for j in range(kcap):
-                dx = float(x[c, j]) - float(x[c, i])
-                dy = float(y[c, j]) - float(y[c, i])
-                d2 = dx * dx + dy * dy
-                if d2 > 0:
-                    acc += G * float(m[c, i]) * float(m[c, j]) * dx / d2 ** 1.5
-            np.testing.assert_allclose(fx[c, i], acc, rtol=2e-4, atol=1e-12)
+        jnp.asarray((m > 0).astype(np.int32)), ncells, kcap, EPSILON,
+        collide=False)
+    tx, ty = tile_pair_forces(x, y, m)
+    assert int(cnt) == 0
+    np.testing.assert_allclose(np.asarray(fx), tx, rtol=2e-4, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(fy), ty, rtol=2e-4, atol=1e-12)
 
 
 def test_fused_pairs_v2_equals_v1():
@@ -164,9 +157,10 @@ def test_fused_pairs_v2_equals_v1():
 
 
 def test_fused_pairs_v4_matches_v2_semantics():
-    """MXU-form force pass: identical collision outputs (the machinery is
-    v2's code), forces equal to v2 within the cancellation envelope
-    (PERF.md study; adoption gated on the measured error)."""
+    """Contraction-form force pass: identical collision outputs (the
+    machinery is v2's code), forces equal to v2 within the cancellation
+    envelope (adoption gated on the measured error,
+    test_v4_quantization_study)."""
     import jax.numpy as jnp
     import numpy as np
 
@@ -265,7 +259,7 @@ def test_engine_runs_with_v5_pair_impl(monkeypatch):
     monkeypatch.setenv("PSIM_PAIR_IMPL", "v5")
     cfg = SimConfig(seed=5893, side=0.05, ncside=3, n_particles=10,
                     precision=Precision.FAST)
-    eng = Engine(cfg, impl="resident", dense_backend="xla")
+    eng = Engine(cfg, impl="resident")
     out = eng.run(eng.init_state(), 10)
     x, y, c = eng.result(out)
     assert (round(x, 3), round(y, 3), c) == (0.002, 0.035, 2)

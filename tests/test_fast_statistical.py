@@ -50,7 +50,7 @@ def _run_both(seed, side, nc, n, steps, impl="resident"):
     ps = pe.run(pe.init_state(), steps)
     fcfg = SimConfig(seed=seed, side=side, ncside=nc, n_particles=n,
                      precision=Precision.FAST)
-    fe = Engine(fcfg, impl=impl, dense_backend="xla")
+    fe = Engine(fcfg, impl=impl)
     fs = fe.run(fe.init_state(), steps)
     return ps, fs
 

@@ -8,10 +8,9 @@ Heavy vectors are gated behind PSIM_RUN_SLOW=1 and run in the f64 parity
 engine, whose offset-sweep costs O(N·k_max) lanes per step on CPU: the
 N=1e6 low-step vectors take minutes, while the high-occupancy long-horizon
 ones (s5/s6 at ncside=50 × 300/500 steps, s9) take multiple hours each —
-budget accordingly. ALL 15 vectors verified passing: s0-s5, s7, s8 plus the
-fast five in round 1; s6 (804 collisions, 7069s) and s9 (2209 collisions,
-1936s with the occupancy-blocked sweep) in round 2 — chunked-runner logs
-archived under verification/. That is the reference harness's full table
+budget accordingly. ALL 15 vectors verified passing, s6 (804 collisions)
+and s9 (2209 collisions, with the occupancy-blocked sweep) through the
+chunked runner, whose logs are archived under verification/. That is the reference harness's full table
 (reference serial/run_tests.sh:30-42 + openMP/new_tests.sh:30-35), 15/15.
 """
 

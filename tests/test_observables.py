@@ -25,8 +25,7 @@ def test_momentum_near_conserved_without_collisions():
 def test_summary_fields_and_engine_agreement():
     base = dict(seed=1, side=100.0, ncside=5, n_particles=1000)
     pe = Engine(SimConfig(**base, precision=Precision.PARITY))
-    fe = Engine(SimConfig(**base, precision=Precision.FAST), impl="resident",
-                dense_backend="xla")
+    fe = Engine(SimConfig(**base, precision=Precision.FAST), impl="resident")
     sp = obs.summary(pe.run(pe.init_state(), 20), 100.0)
     sf = obs.summary(fe.run(fe.init_state(), 20), 100.0)
     assert sp["alive"] == sf["alive"]

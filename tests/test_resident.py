@@ -24,7 +24,7 @@ def _engines(n, side, nc, seed):
     base = dict(seed=seed, side=side, ncside=nc, n_particles=n,
                 precision=Precision.FAST)
     return (Engine(SimConfig(**base), impl="sweep"),
-            Engine(SimConfig(**base), impl="resident", dense_backend="xla"))
+            Engine(SimConfig(**base), impl="resident"))
 
 
 def test_resident_matches_sweep_trajectories():
@@ -64,7 +64,7 @@ def test_resident_heavy_migration():
 def test_resident_capacity_retry():
     cfg = SimConfig(seed=1, side=10.0, ncside=2, n_particles=400,
                     precision=Precision.FAST)
-    eng = Engine(cfg, kcap=8, impl="resident", dense_backend="xla")
+    eng = Engine(cfg, kcap=8, impl="resident")
     out = eng.run(eng.init_state(), 2)
     assert int(out.overflow) == 0
     assert eng.kcap > 8 or eng.impl != "resident"
@@ -84,25 +84,6 @@ def test_resident_mass_conservation_and_dead_frozen():
         np.testing.assert_array_equal(rv2["x"][dead1], rv1["x"][dead1])
 
 
-def test_resident_pallas_backend_interpret():
-    # The fused Pallas kernel drives the resident step in interpret mode.
-    from particlesimulation_tpu.config import Precision, SimConfig
-    from particlesimulation_tpu.engine import Engine
-    base = dict(seed=5893, side=0.08, ncside=4, n_particles=120,
-                precision=Precision.FAST)
-    xla_eng = Engine(SimConfig(**base), impl="resident", dense_backend="xla")
-    pls_eng = Engine(SimConfig(**base), impl="resident",
-                     dense_backend="pallas")
-    a = xla_eng.run(xla_eng.init_state(), 5)
-    b = pls_eng.run(pls_eng.init_state(), 5)
-    assert int(a.collisions) == int(b.collisions)
-    av, apid = _by_pid(a)[0], _by_pid(a)[1]
-    bv, bpid = _by_pid(b)[0], _by_pid(b)[1]
-    np.testing.assert_array_equal(apid, bpid)
-    np.testing.assert_allclose(bv["x"], av["x"], rtol=0, atol=1e-5)
-    np.testing.assert_array_equal(bv["alive"], av["alive"])
-
-
 def test_rebin_r2_argmax_form_bitexact(monkeypatch):
     """The chained-argmax R=2 delivery form selects the same winner lanes
     and target slots as the cumsum rank form (the r-th set lane / the
@@ -117,10 +98,10 @@ def test_rebin_r2_argmax_form_bitexact(monkeypatch):
                 precision=Precision.FAST)
     monkeypatch.setenv("PSIM_REBIN_R", "2")
     monkeypatch.setenv("PSIM_REBIN_FORM", "argmax")
-    e1 = Engine(SimConfig(**base), impl="resident", dense_backend="xla")
+    e1 = Engine(SimConfig(**base), impl="resident")
     s1 = e1.run(e1.init_state(), 25)
     monkeypatch.setenv("PSIM_REBIN_FORM", "rank")
-    e2 = Engine(SimConfig(**base), impl="resident", dense_backend="xla")
+    e2 = Engine(SimConfig(**base), impl="resident")
     s2 = e2.run(e2.init_state(), 25)
     assert int(s1.collisions) == int(s2.collisions)
     for f in ("x", "y", "vx", "vy", "m", "pid", "alive"):
@@ -129,8 +110,8 @@ def test_rebin_r2_argmax_form_bitexact(monkeypatch):
 
 
 def test_rebin_compact_matches_rounds(monkeypatch):
-    """Straggler compaction (opt-in; measured slower on the v5e but kept
-    as the CPU-class/A-B variant) vs the default delivery rounds: same
+    """Straggler compaction (opt-in; kept as the CPU-class/A-B variant)
+    vs the default delivery rounds: same
     physics. Slot assignment differs (compaction packs lowest free slots
     in row order), so f32 reduction order may differ; collision counts,
     dead sets and positions must agree."""
@@ -142,10 +123,10 @@ def test_rebin_compact_matches_rounds(monkeypatch):
     base = dict(seed=3, side=8.0, ncside=8, n_particles=400,
                 precision=Precision.FAST)
     monkeypatch.setenv("PSIM_REBIN_COMPACT", "1")
-    e1 = Engine(SimConfig(**base), impl="resident", dense_backend="xla")
+    e1 = Engine(SimConfig(**base), impl="resident")
     s1 = e1.run(e1.init_state(), 30)
     monkeypatch.setenv("PSIM_REBIN_COMPACT", "0")
-    e2 = Engine(SimConfig(**base), impl="resident", dense_backend="xla")
+    e2 = Engine(SimConfig(**base), impl="resident")
     s2 = e2.run(e2.init_state(), 30)
     assert int(s1.collisions) == int(s2.collisions)
     o1 = np.argsort(np.asarray(s1.pid))
@@ -211,7 +192,7 @@ def test_rebin_axis_routed_matches_full_stencil(monkeypatch):
 def test_rebin_axis_routed_needs_no_extra_rounds(monkeypatch):
     """At the physical diagonal-mover rate (corner crossings are rare),
     axis routing must deliver in the same number of rounds as the full
-    stencil — the basis of its 2x transport model (PERF.md round census);
+    stencil — the basis of its 2x transport model;
     rounds are deterministic, so this pins the census result."""
     import jax.numpy as jnp
 
@@ -329,7 +310,7 @@ def test_prologue_clamp_parks_out_of_range():
 
     cfg = SimConfig(seed=1, side=100.0, ncside=20, n_particles=64,
                     precision=Precision.FAST)
-    eng = Engine(cfg, impl="resident", dense_backend="xla")
+    eng = Engine(cfg, impl="resident")
     state = eng.init_state()
     # Push particle pid=0 out of range past the far corner.
     i0 = int(np.argmin(np.asarray(state.pid)))
@@ -365,7 +346,7 @@ def test_rebin_walker_straggler_compaction():
 
     cfg = SimConfig(seed=1, side=100.0, ncside=25, n_particles=300,
                     precision=Precision.FAST)
-    eng = Engine(cfg, impl="resident", dense_backend="xla")
+    eng = Engine(cfg, impl="resident")
     state = eng.init_state()
     kcap = 32
     _, prologue, _ = make_resident_run(cfg, kcap)

@@ -82,8 +82,7 @@ def test_balanced_resident_matches_single_chip():
     collision count and dead set match the single-chip resident run."""
     base = dict(seed=-6, side=8.0, ncside=16, n_particles=900,
                 precision=Precision.FAST)
-    single = Engine(SimConfig(**base), impl="resident",
-                    dense_backend="xla")
+    single = Engine(SimConfig(**base), impl="resident")
     ss = single.run(single.init_state(), 15)
 
     cfg = SimConfig(**base, n_shards=4, shard_capacity=900,

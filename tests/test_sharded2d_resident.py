@@ -29,7 +29,7 @@ needs_mesh = pytest.mark.skipif(NDEV < 8, reason="needs 8 virtual devices")
 
 def _run_pair(base, mesh_shape, steps, **kw):
     shards = mesh_shape[0] * mesh_shape[1]
-    se = Engine(SimConfig(**base), impl="resident", dense_backend="xla")
+    se = Engine(SimConfig(**base), impl="resident")
     ss = se.run(se.init_state(), steps)
     # Pin impl: these are resident-vs-resident tests; the round-5 census
     # auto-route would delegate the sparse configs to the 1D supercell
@@ -120,7 +120,7 @@ def test_sharded2d_resident_tile_overflow_retries():
     still produces the single-chip answer."""
     base = dict(seed=5893, side=0.05, ncside=8, n_particles=64,
                 precision=Precision.FAST)
-    se = Engine(SimConfig(**base), impl="resident", dense_backend="xla")
+    se = Engine(SimConfig(**base), impl="resident")
     ss = se.run(se.init_state(), 12)
     me = Sharded2DEngine(
         SimConfig(**base, n_shards=8, mesh_shape=(2, 4)), (2, 4), kcap=1)

@@ -1,6 +1,6 @@
 """Sharded banded engines vs the single-chip resident engine.
 
-The clustered-regime composition (VERDICT r3 item 3): ops/banded.py's
+The clustered-regime composition: ops/banded.py's
 per-band capacity right-sizing on a 1D ring mesh. Two decompositions
 exist: column-sharded (parallel/sharded_banded_cols.py — every shard owns
 a contiguous column range of every row band; the default) and block-cyclic
@@ -27,7 +27,7 @@ needs_mesh = pytest.mark.skipif(NDEV < 8, reason="needs 8 virtual devices")
 
 
 def _pair(base, shards, steps, plan=None, impl_override="banded", **kw):
-    se = Engine(SimConfig(**base), impl="resident", dense_backend="xla")
+    se = Engine(SimConfig(**base), impl="resident")
     ss = se.run(se.init_state(), steps)
     me = ShardedEngine(SimConfig(**base, n_shards=shards),
                        impl=impl_override, **kw)
@@ -160,7 +160,7 @@ def test_sharded_banded_overflow_grows_plan():
     and still produces the single-chip answer."""
     base = dict(seed=5893, side=0.05, ncside=16, n_particles=256,
                 precision=Precision.FAST)
-    se = Engine(SimConfig(**base), impl="resident", dense_backend="xla")
+    se = Engine(SimConfig(**base), impl="resident")
     ss = se.run(se.init_state(), 12)
     me = ShardedEngine(SimConfig(**base, n_shards=8), impl="banded")
     me._band_plan = ((0, 8, 2), (8, 8, 2))

@@ -26,7 +26,7 @@ needs_mesh = pytest.mark.skipif(NDEV < 8, reason="needs 8 virtual devices")
 
 
 def _run_pair(base, shards, steps, **kw):
-    se = Engine(SimConfig(**base), impl="resident", dense_backend="xla")
+    se = Engine(SimConfig(**base), impl="resident")
     ss = se.run(se.init_state(), steps)
     # Pin the resident impl (this file compares resident vs resident):
     # since round 5 the mesh census auto-routes sparse/clustered loads to

@@ -12,8 +12,7 @@ badly, 1.43x serial at 12x8 MPI (g32mpi/CPD_2nd_delivery.pdf p.5
 table 1) — under the same one-binary mpirun harness
 (mpi/run_tests.sh:8-16).
 
-Also covers the round-5 census auto-routing contract (VERDICT r4 item
-2): a sparse config under a mesh auto-selects supercell, a clustered
+Also covers the mesh census auto-routing contract: a sparse config under a mesh auto-selects supercell, a clustered
 UNEVEN-shaped config auto-selects banded-cols, with no --impl flag.
 """
 
@@ -132,7 +131,7 @@ def test_sharded_supercell_kcap_retry():
     assert int(np.asarray(ms.overflow)) == 0
 
 
-# ---- census auto-routing (VERDICT r4 item 2) ---------------------------
+# ---- census auto-routing ------------------------------------------------
 
 @needs_mesh
 def test_mesh_auto_routes_sparse_to_supercell():

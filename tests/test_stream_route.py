@@ -1,6 +1,6 @@
-"""HBM-streaming auto route: huge uniform loads split into row bands.
+"""Streaming auto route: huge uniform loads split into row bands.
 
-PERF.md "1e7 band streaming": above ``PSIM_STREAM_BYTES`` of resident
+Above ``PSIM_STREAM_BYTES`` of resident
 tile state the engine auto-routes to the banded impl with an equal-rows
 plan (~``PSIM_STREAM_BAND_BYTES`` per band). Thresholds are shrunk here
 so a CPU-sized workload exercises the route; physics equality vs the
@@ -24,14 +24,14 @@ def stream_env(monkeypatch):
 def test_stream_route_fires_and_matches_resident(stream_env):
     cfg = SimConfig(seed=1, side=8.0, ncside=16, n_particles=2000,
                     precision=Precision.FAST)
-    e = Engine(cfg, dense_backend="xla")
+    e = Engine(cfg)
     s = e.run(e.init_state(), 5)
     assert e.impl == "banded", "streaming route did not fire"
     assert e._band_plan is not None
     assert sum(rw for _, rw, _ in e._band_plan) == cfg.ncside
     assert len(e._band_plan) >= 2
 
-    r = Engine(cfg, impl="resident", dense_backend="xla")
+    r = Engine(cfg, impl="resident")
     rs = r.run(r.init_state(), 5)
     assert int(np.asarray(s.collisions)) == int(np.asarray(rs.collisions))
     # Same particles, same trajectories (identical physics, band split
@@ -44,7 +44,7 @@ def test_stream_route_fires_and_matches_resident(stream_env):
 def test_stream_route_respects_explicit_impl(stream_env):
     cfg = SimConfig(seed=1, side=8.0, ncside=16, n_particles=2000,
                     precision=Precision.FAST)
-    e = Engine(cfg, impl="resident", dense_backend="xla")
+    e = Engine(cfg, impl="resident")
     e.run(e.init_state(), 2)
     assert e.impl == "resident", "explicit impl must not be rerouted"
 
@@ -54,6 +54,6 @@ def test_stream_route_quiet_below_threshold(monkeypatch):
     # Default thresholds: a tiny workload must stay resident.
     cfg = SimConfig(seed=1, side=8.0, ncside=16, n_particles=2000,
                     precision=Precision.FAST)
-    e = Engine(cfg, dense_backend="xla")
+    e = Engine(cfg)
     e.run(e.init_state(), 2)
     assert e.impl == "resident"

@@ -21,7 +21,7 @@ CLUSTERED = dict(seed=-7, side=24.0, ncside=12, n_particles=2000,
 
 def _run(impl, steps=12, plan=None, **cfg_over):
     cfg = SimConfig(**{**CLUSTERED, **cfg_over})
-    eng = Engine(cfg, impl=impl, dense_backend="xla")
+    eng = Engine(cfg, impl=impl)
     if plan is not None:
         eng._tier_plan = plan
     out = eng.run(eng.init_state(), steps)
@@ -51,11 +51,11 @@ def test_tiered_fat_tier_actually_used():
     from particlesimulation_tpu.ops.tiered import make_tiered_step
 
     cfg = SimConfig(**CLUSTERED)
-    eng = Engine(cfg, impl="tiered", dense_backend="xla")
+    eng = Engine(cfg, impl="tiered")
     state = eng.init_state()
     plan = eng._tier_plan
     assert len(plan) >= 2
-    _, build_tiles, _ = make_tiered_step(cfg, plan, "xla")
+    _, build_tiles, _ = make_tiered_step(cfg, plan)
     import jax
     tiles = jax.jit(build_tiles)(state)
     # At least one cell must land in a higher class, with real particles.
@@ -143,7 +143,7 @@ def _auto_route_impl(clustered_impl=None):
 
 def test_auto_select_picks_banded_when_clustered():
     """The occupancy census must route clustered loads to the clustered
-    default (banded after the 2026-08-18 silicon A/B, PERF.md)."""
+    default (banded)."""
     eng = _auto_route_impl()
     assert eng.impl == "banded"
     assert eng._band_plan is not None

@@ -274,17 +274,37 @@ def test_bench_fn_returns_positive():
 
 def test_compile_cache_enable(monkeypatch, tmp_path):
     """enable() is idempotent, honors the opt-out, and points JAX at the
-    configured directory."""
+    directory JAX_COMPILATION_CACHE_DIR names."""
     import jax
 
     from particlesimulation_tpu.utils import compile_cache
 
-    monkeypatch.setenv("PSIM_COMPILE_CACHE_DIR", str(tmp_path / "cc"))
+    old = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cc"))
     monkeypatch.setattr(compile_cache, "_done", False)
-    assert compile_cache.enable() is True
-    assert compile_cache.enable() is True  # idempotent
-    assert jax.config.jax_compilation_cache_dir == str(tmp_path / "cc")
+    try:
+        assert compile_cache.enable() is True
+        assert compile_cache.enable() is True  # idempotent
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "cc")
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
 
     monkeypatch.setenv("PSIM_COMPILE_CACHE", "0")
     monkeypatch.setattr(compile_cache, "_done", False)
     assert compile_cache.enable() is False
+
+
+def test_compile_cache_default_dir_in_checkout(monkeypatch):
+    """Without JAX_COMPILATION_CACHE_DIR the cache sits at one fixed path
+    inside the checkout, and .gitignore lists it."""
+    import os
+
+    from particlesimulation_tpu.utils import compile_cache
+    from particlesimulation_tpu.utils.runtime import repo_root
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    path = compile_cache.cache_dir()
+    assert path == os.path.join(repo_root(), ".jax_cache")
+    assert compile_cache.cache_dir() == path  # fixed, not per process
+    with open(os.path.join(repo_root(), ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()

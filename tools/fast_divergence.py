@@ -2,9 +2,9 @@
 
 For a chaotic N-body system, f32 trajectories must leave the reference
 harness's ±0.001 coordinate window after some number of steps; this tool
-measures when, and how the collision count tracks, so PERF.md can document
-the production path's accuracy envelope instead of leaving it unknown
-(VERDICT r1 weak #6). The reference has the same property between its own
+measures when, and how the collision count tracks: the production path's
+accuracy envelope.
+The reference has the same property between its own
 variants — its OpenMP harness compares only collision counts on long runs
 and coordinates on short ones.
 

@@ -1,4 +1,4 @@
-"""Heavy clustered golden through the SHARDED banded path (VERDICT r4 #6).
+"""Heavy clustered golden through the SHARDED banded path.
 
 Runs reference vector #11 (``-1 1000 30 100000 1000 -> 575.878 370.663 /
 1203``, reference serial/run_tests.sh) at FULL horizon through the
@@ -46,7 +46,7 @@ def main():
                 precision=Precision.FAST)
 
     t0 = time.time()
-    se = Engine(SimConfig(**base), impl="banded", dense_backend="xla")
+    se = Engine(SimConfig(**base), impl="banded")
     ss = se.run(se.init_state(), steps)
     cs = int(np.asarray(ss.collisions))
     print(f"single-chip banded: collisions={cs} "

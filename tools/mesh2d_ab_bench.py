@@ -1,9 +1,9 @@
 """D=8 virtual-mesh A/B: 1D resident vs 2D resident vs 2D sweep.
 
-VERDICT r3 item 1's measurement: on the 8-device virtual CPU mesh (one
-physical core — wall time ≈ total work), compare the three sharded
-formulations of the same uniform workload. On real hardware the 2D
-rectangle's advantage is ICI halo volume (perimeter vs whole rows),
+On the 8-device virtual CPU mesh (one physical core — wall time ≈ total
+work), compare the three sharded formulations of the same uniform
+workload. On real hardware the 2D rectangle's advantage is halo volume
+(perimeter vs whole rows),
 which a virtual mesh cannot show; what it CAN show is that the 2D
 resident composition costs no more total work than the 1D resident one
 and far less than the 2D sweep.

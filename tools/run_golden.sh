@@ -43,7 +43,7 @@ SLOW_VECTORS=(
   "-11 3500 20 500000 10:1984.878 1625.992:35"
 )
 
-# Heavy vectors for the slow-mesh tier (VERDICT r3 item 4): enough steps
+# Heavy vectors for the slow-mesh tier: enough steps
 # that mesh-decomposition errors would compound past the 0.001 gate.
 SLOW_MESH_VECTORS=(
   "-1 1000 30 100000 1000:575.878 370.663:1203"

@@ -1,10 +1,10 @@
 """Weak/strong scaling harness for the sharded engine.
 
 Runs the mesh engine at a given size over D devices and reports per-step
-time and aggregate throughput (scalar-readback fenced). On this container
-it exercises the 8-device virtual CPU mesh (functional scaling only — the
-BASELINE.json configs 4/5 pod runs need real ICI); the same entry runs
-unchanged on a real slice.
+time and aggregate throughput (scalar-readback fenced). On the CPU it
+exercises the 8-device virtual CPU mesh (functional scaling only — the
+BASELINE.json configs 4/5 runs need real devices); the same entry runs
+unchanged on several GPUs.
 
 Usage:
   python tools/scaling_bench.py [n_per_shard] [ncside] [shards] [steps] [precision]

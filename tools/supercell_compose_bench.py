@@ -3,7 +3,7 @@
 On one physical core emulating all virtual devices, ideal composition is
 equal total work: the D-shard run should cost the same wall time per
 step as the single-chip supercell run plus halo/ship overhead. Gate:
-sharded <= ~1.15x single-chip (VERDICT r4 item 3). The reference runs
+sharded <= ~1.15x single-chip. The reference runs
 this regime distributed at 1.43x its serial (12x8 MPI on SMALL,
 g32mpi/CPD_2nd_delivery.pdf p.5 table 1) because its per-rank work
 scales with the grid; the super-cell decomposition's per-shard work

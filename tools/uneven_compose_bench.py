@@ -2,12 +2,12 @@
 
 On one physical core emulating all virtual devices, ideal composition is
 *equal total work*: the D=8 sharded run should take the same wall time
-per step as the single-chip run (plus halo/ship overhead). The VERDICT
-r3 item-3 gate is sharded ≤ ~1.15x single-chip on an UNEVEN-shaped
-(normal-mode blob) workload.
+per step as the single-chip run (plus halo/ship overhead). The gate is
+sharded ≤ ~1.15x single-chip on an UNEVEN-shaped (normal-mode blob)
+workload.
 
 Usage: uneven_compose_bench.py [N] [ncside] [steps] [seed]
-Needs JAX_PLATFORMS=cpu with 8 virtual devices (see r4_cpu_queue.sh).
+Needs JAX_PLATFORMS=cpu with 8 virtual devices.
 """
 
 import os
@@ -45,7 +45,7 @@ def main():
     base = dict(seed=seed, side=5000.0, ncside=nc, n_particles=n,
                 precision=Precision.FAST)
 
-    se = Engine(SimConfig(**base), impl="banded", dense_backend="xla")
+    se = Engine(SimConfig(**base), impl="banded")
     ss0 = se.init_state()
     print(f"single-chip banded plan: {se._band_plan}", flush=True)
     per_s, ss = timed(se, ss0, steps)
